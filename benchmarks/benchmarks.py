@@ -3,7 +3,7 @@
 
 Reference (benchmarks/benchmarks.py:5-69): TimeEnvs.time_run (10k
 sample+step iterations) over n_envs x threads x {sequential, async, sync},
-plus time_sample, time_reset, peakmem_runner. The TPU equivalents:
+plus time_sample, time_reset, peakmem_runner. The equivalents here:
 
   time_run     sample+step lockstep rollouts (the thread axis becomes the
                execution backend: xla | kernel)
@@ -110,14 +110,10 @@ def main():
            "time_sample": {}, "time_reset": {}}
     for n in sizes:
         for backend in args.backends.split(","):
-            try:
-                sps = bench_run(n, args.iters, backend)
-            except Exception as e:  # kernel backend may be unsupported
-                sps = None
-                print(f"time_run[{n},{backend}] failed: {e}")
+            sps = bench_run(n, args.iters, backend)
             out["time_run"][f"{n},{backend}"] = sps
             print(f"time_run n={n} backend={backend}: "
-                  f"{(sps or 0) / 1e6:.3f}M env-steps/s", flush=True)
+                  f"{sps / 1e6:.3f}M env-steps/s", flush=True)
         out["time_sample"][str(n)] = bench_sample(n, args.iters)
         print(f"time_sample n={n}: {out['time_sample'][str(n)]/1e6:.3f}M/s",
               flush=True)

@@ -1,10 +1,11 @@
-"""eldorado_tpu — a TPU-native re-design of aapo-kossi/gym-eldorado.
+"""eldorado_tpu — an accelerator-native JAX re-design of
+aapo-kossi/gym-eldorado.
 
 The reference (C++20 + pybind11, reference: README.md:79-86) is a
 vectorised hex-board RL environment with a built-in masked random sampler
 and a lock-free threaded runner.  Here the whole engine is pure JAX: the
-env batch is a pytree axis in device memory, the step is one jitted (or
-Pallas-fused) program, and scale-out is a `jax.sharding.Mesh` instead of a
+env batch is a pytree axis in device memory, the step is one jitted
+program, and scale-out is a `jax.sharding.Mesh` instead of a
 thread pool.
 
 Public surface:
@@ -18,7 +19,7 @@ Public surface:
 * `eldorado_tpu.compat` — a `city_of_gold`-shaped module mirror
   (structured dtypes, `cog_env`, `action_sampler`, `vec` getters).
 * `eldorado_tpu.parallel` — mesh construction, `ShardedRunner` (incl.
-  the per-shard Pallas-kernel rollout driver), and the multi-process
+  the per-shard blocked rollout driver), and the multi-process
   pod bootstrap (`parallel.bootstrap`).
 * `eldorado_tpu.core.engine` — the single-env jitted reset/step/sampler.
 * `eldorado_tpu.ops.rng` — bit-exact libstdc++ minstd_rand0 /

@@ -1,4 +1,4 @@
-"""Game constants for the TPU-native City of Gold (El Dorado) engine.
+"""Game constants for the JAX City of Gold (El Dorado) engine.
 
 Mirrors the reference constant set (reference: include/constants.h:1-78) but is
 an independent, array-oriented definition: everything here is a plain Python

@@ -11,10 +11,8 @@ id plane — which is therefore the engine's canonical map representation:
 * `EnvState.map_ids` holds one flat (2304,) i32 id per grid cell.
 * The hot paths (per-step ball reads, the tile-packed ball-word table,
   reset-queue map shipping) consume ids directly — no narrow-minor-7
-  channel layout ever materialises on device.  Materialising a
-  (Q, 48, 48, 7) u8 observation at reset events measured ~105 ms per
-  128-wide queue on v5e (a TPU layout conversion out of the 7-wide
-  minor dim); shipping (Q, 2304) i32 id planes is ~free.
+  channel layout ever materialises on device; reset events ship
+  (Q, 2304) i32 id planes.
 * `expand_obs` produces the reference-ABI channel layout at COLD
   boundaries only (compat bindings, golden comparisons, rendering) —
   mirroring the reference, where finalize's rasterisation is reset-time
@@ -22,8 +20,7 @@ id plane — which is therefore the engine's canonical map representation:
 
 5-bit type ids (sentinel = id 0, so zero padding reads as sentinel) let
 a player's whole 19-cell ball ride in three i32 words — the step's map
-read shrinks to 4 gathered words/env (XLA dependent-gather costs
-~9-14 ns/element on TPU, so gathered volume is the rollout's wall).
+read shrinks to 4 gathered words/env.
 """
 from __future__ import annotations
 
@@ -45,8 +42,8 @@ assert N_CELL_TYPES <= 32, _CELL_TRIPLES
 # reference obs layout means "no requirement" — a (req < 5, n_req == 0)
 # hex would be indistinguishable from an empty cell after expansion.
 assert not any(t[0] < 5 and t[1] == 0 for t in _CELL_TRIPLES), _CELL_TRIPLES
-# decode LUTs bit-packed into scalar ints: variable-shift extraction is
-# kernel-safe (Mosaic), a (19,)-table gather is not
+# decode LUTs bit-packed into scalar ints: variable-shift extraction
+# instead of a (19,)-table gather
 _REQ_L0 = sum(_CELL_TRIPLES[i][0] << (3 * i) for i in range(10))
 _REQ_L1 = sum(_CELL_TRIPLES[i][0] << (3 * (i - 10))
               for i in range(10, N_CELL_TYPES))
@@ -58,9 +55,8 @@ _END_L = sum(_CELL_TRIPLES[i][2] << i for i in range(N_CELL_TYPES))
 
 def cell_type_ids(req, nr, end):
     """(req, n_req, is_end) -> 5-bit cell-type id, elementwise. A
-    compare-select chain, NOT a LUT gather: XLA TPU gathers cost
-    ~13 ns/element, which turned the (n, 2304)-cell table build into a
-    125 ms fixed cost per rollout call (measured)."""
+    compare-select chain, NOT a LUT gather, so the (n, 2304)-cell table
+    build stays elementwise."""
     key = (req << 4) | (nr << 1) | end
     out = jnp.zeros_like(key)
     for i, (r, n, e) in enumerate(_CELL_TRIPLES[1:], start=1):
@@ -70,7 +66,7 @@ def cell_type_ids(req, nr, end):
 
 def decode_cells(ids):
     """5-bit type ids -> (req, n_req, is_end), any shape. Pure shift/mask
-    arithmetic against bit-packed scalar LUTs — no gather, kernel-safe."""
+    arithmetic against bit-packed scalar LUTs — no gather."""
     lo = ids < 10
     s3 = 3 * jnp.where(lo, ids, ids - 10)
     req = jnp.where(lo, _REQ_L0 >> s3, _REQ_L1 >> s3) & 7

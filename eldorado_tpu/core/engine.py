@@ -1,6 +1,6 @@
 """Jittable single-env engine: pure-functional reset / step / observation.
 
-The TPU-native core. One environment's entire state is the `EnvState` pytree
+The device core. One environment's entire state is the `EnvState` pytree
 (struct-of-arrays over the batch once vmapped); `reset_env` and `step_env` are
 pure functions traced once and compiled by XLA. Dispatch is a chain of masked
 state selections (every branch is computed, exactly one is kept) — the
@@ -10,9 +10,8 @@ eldorado_tpu.core.ref_engine.RefEnv, which is itself bit-exact against the
 UB-patched reference oracle (see tests/golden).
 
 Performance shape: every data-dependent update is expressed as one-hot
-arithmetic (`where(iota == idx, ...)`) instead of scatter/gather — XLA's
-generic scatter serialises on the TPU's vector core, and the first draft's
-228 scatters per step cost ~28 ms/step; the one-hot form fuses into the
+arithmetic (`where(iota == idx, ...)`) instead of scatter/gather — the
+first draft had 228 scatters per step; the one-hot form fuses into the
 surrounding elementwise work. The only gathers left are the 48x48x7 map-cell
 lookups. Branch merges go through `_select`, which skips untouched leaves
 (they are the same traced value on both sides), so per-step HBM traffic stays
@@ -53,9 +52,10 @@ from . import tables as T
 from .mapgen import generate_map
 
 _i32 = jnp.int32
-# The reference's u_char state is held as int32 (Mosaic vectorises only
-# i16/i32); every arithmetic site that can leave [0, 255] applies _wrap8,
-# preserving the uint8 wraparound semantics bit for bit.
+# The reference's u_char state is held as int32 (a layout chosen for an
+# earlier kernel compiler; ROADMAP C2); every arithmetic site that can
+# leave [0, 255] applies _wrap8, preserving the uint8 wraparound
+# semantics bit for bit.
 _u8 = jnp.int32
 _f32 = jnp.float32
 
@@ -70,7 +70,7 @@ MASK_LEN = 92
 PILE_DRAW, PILE_HAND, PILE_ACTIVE, PILE_PLAYED, PILE_DISCARD = range(5)
 
 # static tables
-# numpy (not jnp) so pallas kernels can close over them as baked literals
+# numpy (not jnp): trace-time constants, folded into each program
 _CARD_RES = np.asarray(T.CARD_RES, np.float32)     # (21,3)
 _CARD_COST = np.asarray(T.CARD_COST, np.float32)   # (21,)
 _CARD_SINGLE = np.asarray(T.CARD_SINGLE_USE)       # (21,)
@@ -86,7 +86,8 @@ _DIR_DBL = np.asarray(
 # 2-hop hex neighbourhood ("ball"): every cell reachable as a+b for unit
 # direction offsets a, b (incl. null). The step's only map dependence is this
 # 19-cell ball per player, which lets the hot path consume *pregathered*
-# cells — the kernel path (ops/step_kernel.py) never touches the 48x48 map.
+# cells — the blocked rollout scan (vec._KernelPrograms) never touches the
+# 48x48 map inside the step.
 _BALL_LIST = []
 for _a in ((0, 0), (2, 0), (0, 2), (-2, 2), (-2, 0), (0, -2), (2, -2)):
     for _b in ((0, 0), (2, 0), (0, 2), (-2, 2), (-2, 0), (0, -2), (2, -2)):
@@ -135,8 +136,8 @@ def _add1(arr, i, delta, iota):
 
 
 def _get1(arr, i, iota):
-    """arr[i] with a traced index, reduction-free for bool/unsigned dtypes
-    (Mosaic implements reductions only over signed int / float)."""
+    """arr[i] with a traced index; bool/unsigned dtypes reduce through
+    i32."""
     dt = arr.dtype
     if dt in (jnp.bool_, jnp.uint8, jnp.uint32):
         v = jnp.max(jnp.where(_oh(i, iota), arr.astype(_i32),
@@ -146,13 +147,12 @@ def _get1(arr, i, iota):
 
 
 def _max2(x):
-    """Full max over the last two axes as two single-axis reductions —
-    Mosaic's layout inference aborts on multi-axis reductions."""
+    """Full max over the last two axes as two single-axis reductions."""
     return jnp.max(jnp.max(x, axis=-1), axis=-1)
 
 
 def _any1(x):
-    """Scalar any() over a bool array (Mosaic has no bool reductions)."""
+    """Scalar any() over a bool array, as an i32 sum."""
     return jnp.sum(x.astype(_i32)) > 0
 
 
@@ -188,12 +188,8 @@ def _pile_add(piles, row, delta):
 
 
 def _csum_incl(x_i32):
-    """Inclusive prefix sum along the last axis via a triangular f32 matmul
-    (values < 2^24 so f32 is exact). jnp.cumsum is avoided because the hot
-    path must also lower through Mosaic inside the Pallas step kernel."""
-    n = x_i32.shape[-1]
-    tril = np.tril(np.ones((n, n), np.float32)).T  # row i feeds cols j >= i
-    return (x_i32.astype(_f32) @ tril).astype(_i32)
+    """Inclusive prefix sum along the last axis, in exact int32."""
+    return jnp.cumsum(x_i32, axis=-1, dtype=_i32)
 
 
 class EnvState(NamedTuple):
@@ -205,9 +201,7 @@ class EnvState(NamedTuple):
     max_steps: jnp.ndarray      # i32
     # map — canonical flat (2304,) i32 cell-type-id plane (core/cells.py);
     # cells.expand_obs re-creates the reference-ABI (48,48,7) u8 layout at
-    # cold boundaries (compat, goldens, render) only: the narrow-minor-7
-    # channel layout cost ~105 ms of TPU layout conversion per 128-wide
-    # reset queue when it lived in the state (docs/performance.md round 5)
+    # cold boundaries (compat, goldens, render) only
     map_ids: jnp.ndarray        # (2304,) i32
     min_xy: jnp.ndarray         # (2,) i32 doubled
     player_xy: jnp.ndarray      # (4,2) i32 doubled
@@ -273,8 +267,7 @@ def _select(pred, a, b):
             return x
         if x.ndim == 0:
             return jnp.where(pred, x, y)
-        # expand through i32: Mosaic only allows minor-dim insertion on
-        # 32-bit types, and vmap turns this scalar reshape into one
+        # expand through i32: vmap turns this scalar reshape into one
         p = jnp.reshape(pred32, (1,) * x.ndim) == 1
         return jnp.where(p, x, y)
     return jax.tree_util.tree_map(pick, a, b)
@@ -331,8 +324,8 @@ def init_mask():
 # ---- packed mask words -------------------------------------------------
 # storage_masks live in the state as 3 i32 words per player (92 bits,
 # 4 spare): the step only ever selects/saves whole rows, and one-hot
-# row select/scatter on (4, 92) bools cost ~2k vregs/step in the fused
-# kernel vs ~150 for (4, 3) words + one unpack of the agent's row.
+# row select/scatter on (4, 92) bools is ~13x the element work of (4, 3)
+# words + one unpack of the agent's row.
 _POW32 = np.arange(32, dtype=np.int32)
 MASK_WORDS = (MASK_LEN + 31) // 32
 
@@ -355,10 +348,8 @@ def unpack_mask(words):
 
 # ---- packed-word mask algebra ------------------------------------------
 # The step's WORKING masks (sel + the per-player storage rows it edits)
-# ride as (3,) i32 words end to end: the (92,)-bool pipeline was 52% of
-# the fused kernel's vreg units (55 select_n + 55 and + 32 broadcast +
-# 26 or + 24 eq + ... on (92, block) tensors); the same updates on 3
-# words are ~30x smaller. Bit positions can sit in the sign bit — all
+# ride as (3,) i32 words end to end: the same updates on 3 words
+# instead of (92,) bools touch ~30x fewer elements. Bit positions can sit in the sign bit — all
 # algebra is & | ^ ~ and shifts, and addition of DISTINCT bit positions
 # (two's complement) equals OR, so packing sums are carry-free.
 _IOTA3W = np.arange(MASK_WORDS)
@@ -490,8 +481,7 @@ class PView(NamedTuple):
     update site (~150 sites). Projecting player p ONCE, running the whole
     branch logic on (21,)/(92,)/scalar values, and embedding the result back
     in a single pass removes ~4x of the step's element traffic and a third
-    of its op count — which is what bounds the fused Pallas kernel
-    (ops/step_kernel.py), where every op is a separate vector instruction.
+    of its op count.
     """
     # projected player p (u8-domain values held as i32, see _u8)
     draw: jnp.ndarray            # (21,)
@@ -592,9 +582,8 @@ def _deck_draw_p(v: PView, n) -> PView:
     one = jnp.asarray(1, _u8)
     # ONE inclusive prefix sum per call; each live draw decrements the
     # prefix at positions >= the drawn type (exact integer identity with
-    # recomputing _csum_incl on the updated pile) — the recomputed form
-    # cost one (21, 21) matmul + converts per UNROLLED draw, ~10 of the
-    # fused step kernel's 13 dot_general nodes
+    # recomputing _csum_incl on the updated pile, which would cost one
+    # prefix sum per UNROLLED draw)
     cum = _csum_incl(draw)
     for k in range(HAND_SIZE):  # static unroll: at most 4 draws per call
         live = k < n_eff
@@ -770,7 +759,7 @@ def _ball_cells(s: EnvState):
 def _ball_cells_xy(map_ids, min_xy, player_xy):
     """_ball_cells from explicit (map_ids, min_xy, player_xy) — the only
     state it reads. Lets rollout drivers that keep the rest of the state in
-    a kernel-native layout pregather from just the positions. One id
+    a blocked layout pregather from just the positions. One id
     gather per ball point (76 elements/env vs 532 in the 7-channel
     layout), decoded by LUT shifts."""
     tgt = player_xy[:, None, :] + _BALL[None, :, :]            # (4,19,2)
@@ -820,7 +809,7 @@ def pack_ball_words(pids, pend0):
         ws.append(w)
     # accumulate the six id fields FIRST and fold the end bit in LAST:
     # seeding the or-chain with (end << 30) triggers an XLA wrong-code
-    # bug (jax 0.9.0, BOTH cpu and tpu backends) that silently drops the
+    # bug (jax 0.9.0, seen on more than one backend) that silently drops the
     # <<20 term under jit (minimal repro + canary:
     # tests/test_ball_words.py::test_w3_fold_jit_parity)
     w3 = jnp.zeros_like(pids[..., 0])
@@ -831,7 +820,7 @@ def pack_ball_words(pids, pend0):
 
 def _ball_p_ids(w0, w1, w2):
     """Unpack the current player's 19 ball-cell ids from the packed
-    96-bit field: static shifts/masks only (kernel-safe)."""
+    96-bit field: static shifts/masks only."""
     ws = (w0, w1, w2)
     cells = []
     for k in range(N_BALL):
@@ -902,13 +891,9 @@ def pack_ball_word_table(map_ids):
     c's 4 words (w0..w2 the 19-cell ball ids, w3 the six 1-hop ids +
     own is_end — the w3_cache row format) live at row c >> 5, lanes
     [(c & 31) * 4, +4). Cell-major rows let the rollout read the whole
-    step's map dependence as ONE contiguous-row gather per env (XLA TPU
-    row gathers cost ~9-12 ns per ROW nearly independent of width, vs
-    ~13 ns per ELEMENT — tools/tpu_gather_model.py), and the 128-lane
-    minor dim keeps the STORED table compact: XLA TPU tiles the last
-    two dims T(8,128), so a (n, 2304, 4) layout silently padded its
-    4-wide minor to 128 lanes — 32x the memory, 4.8 GB at 4096 envs
-    and an out-of-memory wall at 16384.
+    step's map dependence as ONE contiguous-row gather per env instead of
+    one gather per element, and the 128-word minor dim keeps the stored
+    table free of padding on layouts that tile the last dim.
 
     Stencil construction: every _BALL offset is even in both doubled
     coordinates and every hex in a connected map shares both coordinate
@@ -920,10 +905,7 @@ def pack_ball_word_table(map_ids):
     value, so the table matches _ball_cells for every in-grid centre.
 
     The WORDS accumulate plane-by-plane (never a (..., 19) stacked array
-    of raw ids: small trailing dims in elementwise HLO pad to 128-lane
-    vector tiles — a stacked id table cost 18 GB of HLO temps at 4096
-    envs in an earlier layout). The final (2304, 4) stack is a stored
-    array, laid out compactly in HBM (verified by bandwidth probe).
+    of raw ids, which is large HLO temp memory at thousands of envs).
     Single-env; vmap for batches."""
     ids = map_ids.reshape(GRIDSIZE, GRIDSIZE)
     end = (_END_L >> ids) & 1
@@ -1064,7 +1046,7 @@ def _player_reset(s: EnvState, p):
 
 def _update_observation_ball(s: EnvState, agent, ball):
     """_update_observation against pregathered ball rows (req, nr, end),
-    each (4, 19) — the gather-free form the reset kernel uses. With no
+    each (4, 19) — the gather-free form the reset queue uses. With no
     prior hop (m_eff = 0) _movement_mask_row probes exactly the six
     one-hop cells _movement_mask reads from the map."""
     req, nr, end = ball
@@ -1094,10 +1076,8 @@ def reset_body(s: EnvState, player_xy, ball) -> EnvState:
     """Everything in cog_env::reset AFTER map generation, with the map
     reads pregathered: ``player_xy`` (4, 2) already gated by
     add_players' bounds, ``ball`` the (req, nr, end) (4, 19) rows at
-    those positions. While-free and gather-free, so the reset queue can
-    run it as one fused Pallas program (ops/step_kernel.make_fused_reset)
-    — the XLA form dispatches ~1.5k tiny ops per call (~16 ms at
-    128-wide queues). Touches only DYN fields."""
+    those positions. While-free and gather-free; the reset queue vmaps
+    it over its envs (vec._KernelPrograms). Touches only DYN fields."""
     s = s._replace(
         agent=jnp.asarray(0, _i32),
         phase=jnp.asarray(int(TurnPhase.INACTIVE), _i32))
@@ -1264,8 +1244,8 @@ def step_core(s: EnvState, action, ball) -> EnvState:
     """The map-free step body: all map reads come from the pregathered
     ``ball`` — the 4 packed i32 words of ball_words (current agent's
     2-hop ball + next agent's 1-hop cells as 5-bit cell-type ids).
-    Shared verbatim by the XLA path (step_env) and the Pallas
-    mega-kernel (ops/step_kernel.py).
+    Shared verbatim by step_env and the blocked rollout scan
+    (vec._KernelPrograms, through fused_sample_step).
 
     Structure: project the current player ONCE (PView), run the whole
     dispatch (src/environment.cpp:91-224) on the projected values, embed
@@ -1327,8 +1307,7 @@ def _step_from_view(s0: EnvState, s: EnvState, v: "PView", p, action,
     # ---- play branch (src/environment.cpp:104-108, src/player.cpp:47-69)
     def f_play(v):
         idx = jnp.clip(a_play - 1, 0, N_CARDTYPES - 1)
-        # per-channel masked maxes: Mosaic's layout inference aborts on
-        # lane-3 shapes (both the (21,)@(21,3) matmul and a (21,3) reduce)
+        # per-channel masked maxes of the card's resource row
         oh_c = _oh(idx, _IOTA21)
         res_mov = jnp.stack([
             jnp.max(jnp.where(oh_c, _CARD_RES[:, c], 0.0))
@@ -1538,7 +1517,7 @@ def _step_from_view(s0: EnvState, s: EnvState, v: "PView", p, action,
 
 
 # Fields the step never writes (static across steps; only reset touches
-# them). vec.py keeps these out of the lax.scan carry; the Pallas kernel
+# them). vec.py keeps these out of the lax.scan carry; the blocked step
 # never receives them at all (map reads are pregathered ball cells).
 STATIC_FIELDS = ("map_ids", "min_xy", "map_ok", "map_overflow",
                  "n_players", "n_pieces",

@@ -73,7 +73,7 @@ _PIECE_XY = jnp.asarray(T.PIECE_XY, _i32)              # (20,37,2)
 _PIECE_VALID = jnp.asarray(T.PIECE_HEX_VALID)          # (20,37)
 # per-axis planes + feature-packed table for the finalize-time hex
 # reconstruction (split components keep every batched gather/eltwise op
-# rank <= 3 — rank-4 shapes degrade ~1000x on TPU)
+# rank <= 3)
 _PIECE_X = jnp.asarray(T.PIECE_XY[:, :, 0], _i32)      # (20,37)
 _PIECE_Y = jnp.asarray(T.PIECE_XY[:, :, 1], _i32)      # (20,37)
 _PIECE_PACKED = jnp.asarray(                           # (20,37) req|nr<<3|end<<6
@@ -186,9 +186,9 @@ class MapGenState(NamedTuple):
     n_entries: jnp.ndarray     # i32
     # NO per-hex arrays: a placement's 37 hexes are a pure function of
     # (pid, rot, center), so _finalize reconstructs them from the entry
-    # slots. Carrying (HEX_SLOTS, ·) arrays through the trip loop cost
-    # ~10-14 ms per 128-wide reset event (vmapped dynamic_update_slice
-    # writes + per-iteration loop-carry traffic, measured round 5).
+    # slots, instead of carrying (HEX_SLOTS, ·) arrays through the trip
+    # loop (vmapped dynamic_update_slice writes + per-iteration
+    # loop-carry traffic).
     min_xy: jnp.ndarray        # (2,) i32
     max_xy: jnp.ndarray        # (2,) i32
     piece_rot: jnp.ndarray     # (20,) i32
@@ -311,8 +311,7 @@ def _try_add_random(s: MapGenState, pid, active):
     #   vectorised (W*21, W) gather + rank-3 elementwise test. The
     #   dynamic nested pair fori this replaces dispatched ~8 tiny ops
     #   per (e, f) iteration — sum over a 7-trip generation of n_e^2
-    #   iterations ~ 40+ sequential iterations, ~4 of the ~5 ms/trip at
-    #   128-wide reset queues (measured round 5).
+    #   iterations ~ 40+ sequential iterations.
     # * n_entries > _OVL_W (retry stacking piled maps past the window —
     #   rare): the live-bounded nested pair loop, whose bounds are ZERO
     #   for every lane in the vector regime (a vmapped fori over a
@@ -320,14 +319,14 @@ def _try_add_random(s: MapGenState, pid, active):
     #   only its cond).
     #
     # Coordinates stay split per axis: stacking (x, y) would make every
-    # elementwise op rank-4, which XLA TPU degrades ~1000x on.
+    # elementwise op rank-4.
     cw = coords_w.reshape(_OVL_W * 21, 2)            # (W*21, 2)
     cbw = cbase_w.reshape(_OVL_W * 21)               # (W*21,)
 
     # candidate-vectorised, placed-LIVE-bounded: one (W*21,) gather per
     # LIVE placed piece (gather volume n_e x 126 instead of the fixed
     # 6 x 126 of a fully-vectorised window — the overlap gather is the
-    # per-lane cost driver of generate_map, ~13 ns/element; trips run in
+    # per-lane cost driver of generate_map; trips run in
     # lockstep across the queue so the vmapped fori's max-lane bound is
     # the common n_e)
     def one_f(f, hit):
@@ -450,9 +449,8 @@ def generate_map(rng_state, n_pieces, difficulty) -> MapGenOut:
     # n_pieces + 4 trips (entry, n_pieces picks, the at-end transition,
     # the end piece, pop), so the first TRIP_HINT trips run as an
     # UNCONDITIONAL fori — under vmap, a while_loop masks every state
-    # leaf (incl. the (HEX_SLOTS, 2) hex arrays) per iteration per lane,
-    # measured ~11 ms of the 44 ms 7-trip loop at 128-wide queues; the
-    # fori needs no masking because _trip no-ops on finished/aborted
+    # leaf (incl. the (HEX_SLOTS, 2) hex arrays) per iteration per lane;
+    # the fori needs no masking because _trip no-ops on finished/aborted
     # lanes (the ``alive`` gate above). The while then covers retries.
     s = jax.lax.fori_loop(0, TRIP_HINT, lambda i, t: body(t), s)
     s = jax.lax.while_loop(cond, body, s)
@@ -466,8 +464,7 @@ def _trip(s: MapGenState, n_pieces, difficulty) -> MapGenState:
     piece + end piece) per trip; here the branches share ONE gated
     attempt — the rng draws are gated per branch (_uid_maybe with
     mutually-exclusive conditions), so each branch's stream
-    consumption is bit-identical to the switch form. Module-level so
-    tools/tpu_mapgen_profile.py can time it in isolation."""
+    consumption is bit-identical to the switch form."""
     if True:
         # ``alive`` gates every branch and draw: a _trip on a finished
         # or aborted lane is a strict no-op, so the driver may run
@@ -578,8 +575,7 @@ def _finalize(s: MapGenState) -> MapGenOut:
     # (req, n_req, is_end) triple — no channel raster, no scatter, no
     # narrow-minor layout. The reference-ABI (48, 48, 7) u8 expansion
     # (src/map.cpp:389-405's raster shape) happens only at cold API
-    # boundaries via cells.expand_obs; materialising it here cost
-    # ~105 ms of TPU layout conversion per 128-wide reset queue.
+    # boundaries via cells.expand_obs.
     ids = jnp.where(filled, CE.cell_type_ids(req, n_req, is_end), 0)
 
     # add_players inputs: the first four hex slots are the start piece's

@@ -4,7 +4,7 @@ A from-scratch, bit-exact reimplementation of the reference C++ environment
 semantics (reference: src/environment.cpp, src/map.cpp, src/player.cpp,
 src/cards.cpp, include/sampler.h) against the *UB-patched oracle* (see
 tools/parity_probe/make_oracle.py).  This module is the ground truth the
-JAX/TPU engine is tested against on thousands of seeds; it is itself tested
+JAX engine is tested against on thousands of seeds; it is itself tested
 bit-exactly against the oracle dumps in tests/golden/.
 
 It deliberately replicates every behavioural quirk of the reference,

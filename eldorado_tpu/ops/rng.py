@@ -8,8 +8,7 @@ discard/remove picks, and the built-in action sampler (reference:
 src/environment.cpp:18-22, src/cards.cpp:190, src/player.cpp:92,115,
 include/sampler.h:25). Reproducing those streams exactly is the foundation of
 trajectory parity, so the engine state is a single int32 per stream and every
-kernel here is jit/vmap-friendly AND Mosaic-lowerable: the Pallas TPU
-backend vectorises only i16/i32, so all arithmetic is int32 with logical
+kernel here is jit/vmap-friendly: all arithmetic is int32 with logical
 shifts standing in for the unsigned operations (every held value fits in
 [0, 2^31-1]; the one transient that can exceed it wraps mod 2^32 exactly as
 the uint32 original did).
@@ -48,8 +47,8 @@ def _shr(x, n):
 def _div(a, b):
     """Truncating unsigned division: every quotient in these kernels has
     nonnegative operands, where lax.div == C++ '/'. jnp's // emits the
-    floor-division correction chain (div+rem+sign+selects, ~5 vector ops
-    per site in the fused step kernel) for a case that cannot occur."""
+    floor-division correction chain (div+rem+sign+selects, ~5 ops per
+    site) for a case that cannot occur."""
     return jax.lax.div(a, b)
 
 

@@ -1,11 +1,11 @@
 """Device-mesh construction for multi-chip / multi-host env sharding.
 
 The reference scales by pinning OS threads to cores inside one process
-(reference: include/runner.h:117-133); the TPU-native scale axis is a
-`jax.sharding.Mesh` over pod-slice devices. The env batch is sharded over
-the ("host", "chip") axes; per-env work is embarrassingly parallel, so the
-only collectives are metric/trajectory reductions riding ICI (and DCN across
-slices) — see parallel/runner.py.
+(reference: include/runner.h:117-133); here the scale axis is a
+`jax.sharding.Mesh` over the devices of one or more hosts. The env batch is
+sharded over the ("host", "chip") axes; per-env work is embarrassingly
+parallel, so the only collectives are metric/trajectory reductions — see
+parallel/runner.py.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     """A ("host", "chip") mesh over the given (or all) devices. Hosts map to
     the process dimension when running multi-process; single-process runs get
     a 1 x n_devices mesh, which keeps the same named-axis sharding code path
-    compiling for any pod-slice shape."""
+    compiling for any host count."""
     if devices is None:
         devices = jax.devices()
         if n_devices is not None:
@@ -33,7 +33,7 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
 
 def env_sharding(mesh: Mesh) -> NamedSharding:
     """Sharding for the env-batch leading axis: fully split over both mesh
-    axes (batch 4096 on a 4x8 slice = 128 envs per chip)."""
+    axes (batch 4096 on a 1x4 mesh = 1024 envs per device)."""
     return NamedSharding(mesh, P(ENV_AXES))
 
 

@@ -71,7 +71,7 @@ def _build_rollout(mesh: Mesh, n_steps: int, mask_src: str):
         (states, rngs, eps, ret), _ = jax.lax.scan(
             body, (states, rngs, jnp.int32(0), jnp.float32(0.0)), None,
             length=n_steps)
-        # collectives ride the mesh axes (ICI within a host, DCN across)
+        # collectives ride the mesh axes
         eps = jax.lax.psum(eps, ENV_AXES)
         ret = jax.lax.psum(ret, ENV_AXES)
         stats = {"episodes": eps, "return_sum": ret,
@@ -116,13 +116,13 @@ def _build_step(mesh: Mesh):
 
 
 # ------------------------------------------------------------------ kernel
-# Kernel-backed sharded rollouts: the blocked Pallas step-kernel scan +
-# on-device queued auto-resets (vec._KernelPrograms) run PER SHARD inside
-# shard_map, so the single-chip 10M+ env-steps/s rate carries onto meshes.
-# This is the multi-chip analogue of the reference's per-worker env loop
-# (reference: include/runner.h:36-62 statically partitions envs across
-# threads; here the partition is the mesh and each shard runs the fused
-# kernel over its slice). The host blocks on ONE replicated scalar per
+# Kernel-backend sharded rollouts: the blocked step scan + on-device
+# queued auto-resets (vec._KernelPrograms) run PER SHARD inside
+# shard_map, so the single-device path carries onto meshes. This is the
+# multi-chip analogue of the reference's per-worker env loop (reference:
+# include/runner.h:36-62 statically partitions envs across threads; here
+# the partition is the mesh and each shard runs the blocked scan over
+# its slice). The host blocks on ONE replicated scalar per
 # chunk (`any_new`, psum'd over the mesh); reset procgen runs only on
 # shards whose local queue is non-empty (a per-device lax.cond — SPMD
 # control flow diverges freely here because the branches contain no
@@ -133,7 +133,7 @@ class _ShardedKernelPrograms:
     """shard_map-wrapped versions of one local-shape _KernelPrograms."""
 
     def __init__(self, mesh: Mesh, n: int, mask_src: str, block: int,
-                 interpret: bool, gate_dead: bool = False):
+                 gate_dead: bool = False):
         from .. import vec as V
         n_dev = int(mesh.devices.size)
         assert n % n_dev == 0, (n, n_dev)
@@ -142,8 +142,7 @@ class _ShardedKernelPrograms:
         assert n_local % block == 0, (n_local, block)
         template = jax.vmap(lambda s: E.make_state(s))(
             jnp.arange(n_local, dtype=jnp.uint32))
-        progs = V._kernel_programs(template, mask_src, block, interpret,
-                                   gate_dead)
+        progs = V._kernel_programs(template, mask_src, block, gate_dead)
         self.local = progs
         self.mesh = mesh
         self.n = n
@@ -161,32 +160,16 @@ class _ShardedKernelPrograms:
         # block e//block, lane e%block, blocks contiguous per device)
         # produces byte-identical per-device buffers to per-shard
         # blocking, so these run as plain jit with first-axis sharding
-        # constraints — inside shard_map the same transposes lower ~30x
-        # (block_in) / ~150x (unblock) slower (measured on v5e, 4096
-        # envs: 1.46 s vs 43 ms, 4.3 s vs 28 ms). The scan itself
-        # (run_q) stays shard_map — its per-shard compaction is genuine
-        # local-view work and costs the same either way.
-        n_total = n
-
+        # constraints, which keeps the transposes out of shard_map. The
+        # scan itself (run_q) stays shard_map — its per-shard compaction
+        # is genuine local-view work.
         def _sharded0(tree):
             return jax.tree_util.tree_map(
                 lambda x: jax.lax.with_sharding_constraint(x, shard0),
                 tree)
 
-        nbg = n_total // block
         feat = progs.feat
-
-        def t_in_g(x):
-            if x.ndim == 1:
-                return x.reshape(nbg, 1, block)
-            x = x.reshape((nbg, block) + x.shape[1:])
-            return jnp.moveaxis(x, 1, -1)
-
-        def t_out_g(o, fshape):
-            if len(fshape) == 0:
-                return o.reshape(n_total)
-            o = jnp.moveaxis(o, -1, 1)
-            return o.reshape((n_total,) + tuple(fshape))
+        t_in_g, t_out_g = V._blocked_layout(n, block)
 
         @jax.jit
         def block_in(states, rngs):
@@ -342,19 +325,16 @@ class _ShardedKernelPrograms:
 
 @functools.lru_cache(maxsize=None)
 def _sharded_kernel_programs(mesh: Mesh, n: int, mask_src: str, block: int,
-                             interpret: bool,
                              gate_dead: bool = False
                              ) -> _ShardedKernelPrograms:
-    return _ShardedKernelPrograms(mesh, n, mask_src, block, interpret,
-                                  gate_dead)
+    return _ShardedKernelPrograms(mesh, n, mask_src, block, gate_dead)
 
 
 def sharded_kernel_rollout(mesh: Mesh, states, sampler_rngs, n_steps: int,
                            chunk: int = 1500, mask_src: str = "storage",
-                           block: int = 1024, interpret: bool = False,
-                           exact: bool = False):
+                           block: int = 1024, exact: bool = False):
     """vec.rollout_chunked(backend="kernel", reset_mode="sync") over a
-    device mesh: per-shard blocked kernel scans with on-device queued
+    device mesh: per-shard blocked scans with on-device queued
     auto-resets at chunk boundaries. Returns (states, sampler_rngs,
     episodes). Same observable semantics as the single-device kernel
     path (bit-identical when per-boundary finishers fit the queues —
@@ -370,8 +350,7 @@ def sharded_kernel_rollout(mesh: Mesh, states, sampler_rngs, n_steps: int,
     from ..vec import reset_done_bucketed
 
     n = int(states.rng.shape[0])
-    progs = _sharded_kernel_programs(mesh, n, mask_src, block, interpret,
-                                     exact)
+    progs = _sharded_kernel_programs(mesh, n, mask_src, block, exact)
     sh = env_sharding(mesh)
     states = shard_envs(states, mesh)
     sampler_rngs = jax.device_put(sampler_rngs, sh)
@@ -404,11 +383,11 @@ def sharded_kernel_rollout(mesh: Mesh, states, sampler_rngs, n_steps: int,
 
 def sharded_stream_rollout(mesh: Mesh, states, sampler_rngs, n_steps: int,
                            chunk: int = 300, mask_src: str = "storage",
-                           block: int = 1024, interpret: bool = False,
-                           record: str = "full", device_fn=None,
-                           device_carry=None, exact: bool = False):
-    """The learner feed on the multi-chip path: per-shard blocked kernel
-    scans emit packed per-step records (compact 5-word or full 40-word —
+                           block: int = 1024, record: str = "full",
+                           device_fn=None, device_carry=None,
+                           exact: bool = False):
+    """The learner feed on the multi-chip path: per-shard blocked scans
+    emit packed per-step records (compact 5-word or full 40-word —
     eldorado_tpu.stream layouts) and fold them into a per-shard consumer
     carry ON DEVICE inside shard_map, with cond-gated queued auto-resets
     at chunk boundaries and no host sync in the loop. This serves what
@@ -431,8 +410,7 @@ def sharded_stream_rollout(mesh: Mesh, states, sampler_rngs, n_steps: int,
     from .. import stream as S
 
     n = int(states.rng.shape[0])
-    progs = _sharded_kernel_programs(mesh, n, mask_src, block, interpret,
-                                     exact)
+    progs = _sharded_kernel_programs(mesh, n, mask_src, block, exact)
     want = "packed" if record == "compact" else "full"
     if device_fn is None:
         device_fn = S.device_stats_fn
@@ -566,28 +544,26 @@ class ShardedRunner:
         return stats
 
     def rollout_chunked(self, n_steps: int, chunk: int = 1500,
-                        block: int = 1024, interpret: bool = False):
-        """Kernel-backed high-throughput driver: per-shard Pallas step
+                        block: int = 1024):
+        """Kernel-backed high-throughput driver: per-shard blocked step
         scans + queued on-device auto-resets (sharded_kernel_rollout).
         Returns {"episodes", "steps"}."""
         self.states, self.sampler_rngs, episodes = sharded_kernel_rollout(
             self.mesh, self.states, self.sampler_rngs, n_steps, chunk,
-            self.mask_src, block, interpret)
+            self.mask_src, block)
         self._pending = self.states
         return {"episodes": episodes, "steps": n_steps}
 
     def stream_rollout(self, n_steps: int, chunk: int = 300,
-                       block: int = 1024, interpret: bool = False,
-                       record: str = "full", device_fn=None,
-                       device_carry=None):
+                       block: int = 1024, record: str = "full",
+                       device_fn=None, device_carry=None):
         """The multi-chip learner feed (sharded_stream_rollout): per-shard
         packed records folded on device. Returns {"episodes", "steps",
         "carry"} with carry rows per device."""
         (self.states, self.sampler_rngs, episodes,
          carry) = sharded_stream_rollout(
             self.mesh, self.states, self.sampler_rngs, n_steps, chunk,
-            self.mask_src, block, interpret, record, device_fn,
-            device_carry)
+            self.mask_src, block, record, device_fn, device_carry)
         self._pending = self.states
         return {"episodes": episodes, "steps": n_steps, "carry": carry}
 

@@ -1,6 +1,6 @@
 // Native observation-ABI bridge + async trajectory ring.
 //
-// The TPU engine keeps environment state as batched device arrays
+// The JAX engine keeps environment state as batched device arrays
 // (struct-of-arrays). Consumers that want the reference wheel's ABI — the
 // cache-line-friendly array-of-structs ObsData layout with per-player deck
 // counts and mask heads (reference layout: include/api.h:67-161) — need a

@@ -76,8 +76,7 @@ def test_kernel_chunked_reset_modes_match_xla():
     rngs = vec.sampler_init(11, 8)
     sx, rx, ex = vec.rollout_chunked(states, rngs, 200, 50, backend="xla")
     sk, rk, ek = vec.rollout_chunked(states, rngs, 200, 50,
-                                     backend="kernel", block=8,
-                                     interpret=True, reset_mode="sync")
+                                     backend="kernel", block=8, reset_mode="sync")
     assert ex == ek and ex > 0
     for name in E.EnvState._fields:
         assert np.array_equal(np.asarray(getattr(sk, name)),
@@ -85,8 +84,7 @@ def test_kernel_chunked_reset_modes_match_xla():
     assert np.array_equal(np.asarray(rk), np.asarray(rx))
 
     sa, ra, ea = vec.rollout_chunked(states, rngs, 200, 50,
-                                     backend="kernel", block=8,
-                                     interpret=True, reset_mode="async")
+                                     backend="kernel", block=8, reset_mode="async")
     assert ea > 0
     vec.check_map_generation(sa)
 
@@ -101,7 +99,7 @@ def test_async_reset_value_identical():
     from eldorado_tpu.core import engine as E
     states = vec.vec_reset(5, 8, 4, 1, 0, 20)
     rngs = vec.sampler_init(11, 8)
-    progs = vec._kernel_programs(states, "storage", block=8, interpret=True)
+    progs = vec._kernel_programs(states, "storage", block=8)
     bctx, bdyn, brngs = progs.block_in(states, rngs)
     qstate = progs.qstate_init()
     any_new = False
@@ -113,8 +111,8 @@ def test_async_reset_value_identical():
     assert bool(any_new), "max_steps=20 must finish an episode in 300 steps"
 
     cpu = jax.devices("cpu")[0]
-    buf_dev = progs.reset_q_dev(resetq)
-    buf_cpu = progs.reset_q_cpu(jax.device_put(resetq, cpu))
+    buf_dev = progs.reset_q(resetq)
+    buf_cpu = progs.reset_q(jax.device_put(resetq, cpu))
     assert np.array_equal(np.asarray(buf_dev), np.asarray(buf_cpu)), \
         "host-CPU procgen result differs from the on-device reset"
 
@@ -331,7 +329,7 @@ def test_vec_reset_varied_mixed_difficulty_batch():
     # rollout with mid-run auto-resets keeps per-env params
     rngs = vec.sampler_init(3, n)
     s, r, eps = vec.rollout_chunked(mixed, rngs, 120, 30, backend="kernel",
-                                    block=8, interpret=True)
+                                    block=8)
     assert eps > 0
     assert np.array_equal(np.asarray(s.difficulty), diffs)
     assert np.array_equal(np.asarray(s.n_pieces), pieces)

@@ -13,7 +13,8 @@ from eldorado_tpu.core import engine as E
 
 
 def test_w3_fold_jit_parity():
-    """Canary for an XLA wrong-code bug (jax 0.9.0, cpu AND tpu backends): an i32 or/sum fold SEEDED
+    """Canary for an XLA wrong-code bug (jax 0.9.0, seen on more than one
+    backend; chip_smoke.py runs it on the GPU): an i32 or/sum fold SEEDED
     with (end << 30) silently drops the << 20 term under jit(vmap) (jit
     and eager disagree). The engine's w3 packers fold the id fields
     first and OR the end bit last, which compiles correctly — this test

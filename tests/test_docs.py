@@ -2,13 +2,9 @@
 
 Guards the documentation against API drift (round-2 verdict found three
 examples that crashed: a packed-mask regression, a removed runner kwarg,
-and a changed ring.pop signature). Snippets run verbatim except for
-
-* a size-scaling table (big batch / step counts shrink so the CPU lane
-  stays fast — the API surface exercised is identical), and
-* forcing the Pallas kernel into interpreter mode (the test backend is
-  the conftest CPU mesh; the real Mosaic compile path is covered by the
-  TPU benchmark harness).
+and a changed ring.pop signature). Snippets run verbatim except for a
+size-scaling table (big batch / step counts shrink so the CPU lane stays
+fast — the API surface exercised is identical).
 """
 import pathlib
 import re
@@ -77,24 +73,13 @@ def test_api_md_fresh():
 
 
 @pytest.mark.parametrize("fname,code", _BLOCKS)
-def test_doc_snippet_runs(fname, code, monkeypatch):
+def test_doc_snippet_runs(fname, code):
     if "native.TrajectoryRing" in code or (
             "stream.stream_rollout" in code
             and 'deliver="device"' not in code):
         from eldorado_tpu import native
         if not native.available():
             pytest.skip("native toolchain unavailable")
-    if ("backend=\"kernel\"" in code or "kernel_rollout" in code
-            or "rollout_chunked" in code or "stream_rollout" in code):
-        # CPU test backend: run the Pallas kernel in interpreter mode
-        import eldorado_tpu.vec as V
-        orig = V._kernel_programs
-
-        def forced(states, mask_src="storage", block=256, interpret=False,
-                   gate_dead=False):
-            return orig(states, mask_src, block, True, gate_dead)
-
-        monkeypatch.setattr(V, "_kernel_programs", forced)
     for a, b in _SCALE:
         code = code.replace(a, b)
     exec(compile(code, f"<doc:{fname}>", "exec"), {"__name__": "__doc__"})

@@ -24,7 +24,7 @@ CHUNKS = 12
 def _exact_traj(states, rngs):
     """Drive the gate_dead kernel programs chunk by chunk, resetting
     finished envs at boundaries, recording the per-step traj."""
-    progs = vec._kernel_programs(states, "storage", 8, True, gate_dead=True)
+    progs = vec._kernel_programs(states, "storage", 8, gate_dead=True)
     s, r = states, rngs
     cols = [[], [], [], []]
     for _ in range(CHUNKS):
@@ -72,8 +72,7 @@ def test_exact_rollout_chunked_counts():
     states = vec.vec_reset(5, N, 4, 1, 0, 20)
     rngs = vec.sampler_init(11, N)
     s1, r1, eps, dead = vec.rollout_chunked(
-        states, rngs, CHUNK * CHUNKS, CHUNK, backend="kernel", block=8,
-        interpret=True, exact=True)
+        states, rngs, CHUNK * CHUNKS, CHUNK, backend="kernel", block=8, exact=True)
     assert eps > 0
     assert 0 < dead < N * CHUNK * CHUNKS
     _, dones, _, _ = _exact_traj(states, rngs)

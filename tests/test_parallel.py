@@ -67,10 +67,9 @@ def test_sharded_kernel_rollout_matches_single_device():
     states = vec.vec_reset(5, N2, 4, 2, 0, 10)   # short games: resets fire
     rngs = vec.sampler_init(11, N2)
     ss, rs, eps = R.sharded_kernel_rollout(
-        mesh4, states, rngs, 60, chunk=10, block=8, interpret=True)
+        mesh4, states, rngs, 60, chunk=10, block=8)
     su, ru, eps_u = vec.rollout_chunked(
-        states, rngs, 60, chunk=10, backend="kernel", block=8,
-        interpret=True)
+        states, rngs, 60, chunk=10, backend="kernel", block=8)
     assert eps_u > 0, "workload must exercise the reset queue"
     assert eps == eps_u
     assert np.array_equal(np.asarray(rs), np.asarray(ru))
@@ -88,11 +87,10 @@ def test_sharded_exact_matches_single_device():
     states = vec.vec_reset(5, N2, 4, 2, 0, 10)
     rngs = vec.sampler_init(11, N2)
     ss, rs, eps, dead = R.sharded_kernel_rollout(
-        mesh4, states, rngs, 60, chunk=10, block=8, interpret=True,
+        mesh4, states, rngs, 60, chunk=10, block=8,
         exact=True)
     su, ru, eps_u, dead_u = vec.rollout_chunked(
-        states, rngs, 60, chunk=10, backend="kernel", block=8,
-        interpret=True, exact=True)
+        states, rngs, 60, chunk=10, backend="kernel", block=8, exact=True)
     assert eps == eps_u > 0
     assert dead == dead_u > 0
     assert np.array_equal(np.asarray(rs), np.asarray(ru))
@@ -105,7 +103,7 @@ def test_runner_rollout_chunked():
     mesh4 = M.make_mesh(4)
     runner = R.ShardedRunner(mesh4, 32)
     runner.reset(seed=3, n_pieces=2, max_steps=10)
-    stats = runner.rollout_chunked(80, chunk=10, block=8, interpret=True)
+    stats = runner.rollout_chunked(80, chunk=10, block=8)
     assert stats["steps"] == 80
     assert stats["episodes"] > 0
     runner.sync()
@@ -179,10 +177,10 @@ def test_sharded_stream_feed_matches_single_device():
 
     init = (S.device_stats_init(), jnp.int32(0))
     ss, rs, eps, carry = R.sharded_stream_rollout(
-        mesh4, states, rngs, 60, chunk=10, block=8, interpret=True,
+        mesh4, states, rngs, 60, chunk=10, block=8,
         record="full", device_fn=fold, device_carry=init)
     su, ru, eps_u, sink = S.stream_rollout(
-        states, rngs, 60, 10, block=8, interpret=True,
+        states, rngs, 60, 10, block=8,
         deliver="device", record="full", device_fn=fold,
         device_carry=init)
     assert eps == eps_u > 0
@@ -208,7 +206,7 @@ def test_runner_stream_rollout():
     mesh4 = M.make_mesh(4)
     runner = R.ShardedRunner(mesh4, 32)
     runner.reset(seed=3, n_pieces=2, max_steps=10)
-    out = runner.stream_rollout(80, chunk=10, block=8, interpret=True)
+    out = runner.stream_rollout(80, chunk=10, block=8)
     assert out["steps"] == 80 and out["episodes"] > 0
     steps_rows = np.asarray(out["carry"][0])
     assert int(steps_rows.sum()) == 80 * 32
@@ -229,10 +227,9 @@ def test_sharded_mixed_params_matches_single_device():
     states = vec.vec_reset_varied(seeds, 4, pieces, diffs, 10)
     rngs = vec.sampler_init(11, N2)
     ss, rs, eps = R.sharded_kernel_rollout(
-        mesh4, states, rngs, 60, chunk=10, block=8, interpret=True)
+        mesh4, states, rngs, 60, chunk=10, block=8)
     su, ru, eps_u = vec.rollout_chunked(
-        states, rngs, 60, chunk=10, backend="kernel", block=8,
-        interpret=True)
+        states, rngs, 60, chunk=10, backend="kernel", block=8)
     assert eps == eps_u > 0
     for name in E.EnvState._fields:
         assert np.array_equal(np.asarray(getattr(ss, name)),

@@ -64,13 +64,13 @@ def test_stream_matches_xla_traj():
     s0 = vec.vec_reset(5, n, 4, 3, 0, 100000)
     r0 = vec.sampler_init(11, n)
     sK, rK, eps, consumer = stream.stream_rollout(
-        s0, r0, T, chunk=40, block=8, interpret=True, steps_per_push=20)
+        s0, r0, T, chunk=40, block=8, steps_per_push=20)
     assert eps == 0
     assert consumer.records == n * T
 
     collected = []
     sK2, rK2, eps2, c2 = stream.stream_rollout(
-        s0, r0, T, chunk=40, block=8, interpret=True, steps_per_push=20,
+        s0, r0, T, chunk=40, block=8, steps_per_push=20,
         consume=lambda r: collected.append(r.copy()))
     rec = np.concatenate(collected)          # (T, n, 5)
     assert rec.shape == (T, n, 5)
@@ -101,13 +101,13 @@ def test_device_consumer_matches_host():
     r0 = vec.sampler_init(11, n)
     collected = []
     stream.stream_rollout(
-        s0, r0, T, chunk=40, block=8, interpret=True, steps_per_push=20,
+        s0, r0, T, chunk=40, block=8, steps_per_push=20,
         consume=lambda r: collected.append(r.copy()))
     rec = np.concatenate(collected)
     got = stream.unpack_records(rec)
 
     sD, rD, epsD, carry = stream.stream_rollout(
-        s0, r0, T, chunk=40, block=8, interpret=True, deliver="device")
+        s0, r0, T, chunk=40, block=8, deliver="device")
     steps, eps, ret, hist = (np.asarray(x) for x in carry)
     assert steps == n * T
     assert eps == got["done"].sum()
@@ -129,10 +129,10 @@ def test_stream_exact_matches_exact_chunked():
     r0 = vec.sampler_init(11, n)
     collected = []
     sS, rS, epsS, cons, deadS = stream.stream_rollout(
-        s0, r0, T, chunk=50, block=8, interpret=True, steps_per_push=25,
+        s0, r0, T, chunk=50, block=8, steps_per_push=25,
         consume=lambda r: collected.append(r.copy()), exact=True)
     sC, rC, epsC, deadC = vec.rollout_chunked(
-        s0, r0, T, 50, backend="kernel", block=8, interpret=True,
+        s0, r0, T, 50, backend="kernel", block=8,
         exact=True)
     assert (epsS, deadS) == (epsC, deadC) and epsS > 0 and deadS > 0
     for name in E.EnvState._fields:
@@ -161,9 +161,9 @@ def test_stream_with_resets_matches_chunked():
     s0 = vec.vec_reset(5, n, 4, 1, 0, 30)
     r0 = vec.sampler_init(11, n)
     sS, rS, epsS, consumer = stream.stream_rollout(
-        s0, r0, T, chunk=50, block=8, interpret=True, steps_per_push=25)
+        s0, r0, T, chunk=50, block=8, steps_per_push=25)
     sC, rC, epsC = vec.rollout_chunked(
-        s0, r0, T, 50, backend="kernel", block=8, interpret=True,
+        s0, r0, T, 50, backend="kernel", block=8,
         reset_mode="sync")
     assert epsS == epsC > 0
     assert consumer.records == n * T
@@ -187,10 +187,10 @@ def test_compressed_ring_roundtrip():
     rngs = vec.sampler_init(11, n)
     raw, comp = [], []
     s1, r1, e1, c1 = S.stream_rollout(
-        states, rngs, chunk * n_chunks, chunk, block=n, interpret=True,
+        states, rngs, chunk * n_chunks, chunk, block=n,
         steps_per_push=chunk, consume=lambda r: raw.append(r.copy()))
     s2, r2, e2, c2 = S.stream_rollout(
-        states, rngs, chunk * n_chunks, chunk, block=n, interpret=True,
+        states, rngs, chunk * n_chunks, chunk, block=n,
         steps_per_push=chunk, consume=lambda r: comp.append(r.copy()),
         compress=True)
     assert e1 == e2 > 0
@@ -199,7 +199,7 @@ def test_compressed_ring_roundtrip():
     b = np.concatenate(comp)
     assert np.array_equal(a, b)
     assert c1.checksum == c2.checksum
-    assert c2.tunnel_bytes < a.nbytes * 0.7, (c2.tunnel_bytes, a.nbytes)
+    assert c2.wire_bytes < a.nbytes * 0.7, (c2.wire_bytes, a.nbytes)
 
 
 def test_compressed_ring_exact_mode():
@@ -214,11 +214,24 @@ def test_compressed_ring_exact_mode():
     rngs = vec.sampler_init(11, 8)
     raw, comp = [], []
     *_, c1, dead1 = S.stream_rollout(
-        states, rngs, 90, 30, block=8, interpret=True, steps_per_push=30,
+        states, rngs, 90, 30, block=8, steps_per_push=30,
         exact=True, consume=lambda r: raw.append(r.copy()))
     *_, c2, dead2 = S.stream_rollout(
-        states, rngs, 90, 30, block=8, interpret=True, steps_per_push=30,
+        states, rngs, 90, 30, block=8, steps_per_push=30,
         exact=True, compress=True, consume=lambda r: comp.append(r.copy()))
     assert dead1 == dead2 > 0
     assert np.array_equal(np.concatenate(raw), np.concatenate(comp))
     assert c1.checksum == c2.checksum
+
+
+def test_device_delivery_refuses_compress():
+    """Nothing crosses the device->host link on deliver="device", so a
+    compress request is an error, not a silent no-op."""
+    import pytest
+    from eldorado_tpu import stream as S
+    from eldorado_tpu import vec
+    states = vec.vec_reset(5, 8, 4, 1, 0, 30)
+    rngs = vec.sampler_init(11, 8)
+    with pytest.raises(ValueError, match="ring delivery"):
+        S.stream_rollout(states, rngs, 20, 10, block=8, deliver="device",
+                         compress=True)

@@ -2,7 +2,7 @@
 
 The reference's product is observation views read every step
 (include/pybind/vectorized.h:60-150: map, per-player piles, shop,
-masks, resources, phase — include/api.h:84-129). Here the TPU feed's
+masks, resources, phase — include/api.h:84-129). Here the feed's
 40-word records + reset keyframes must let a host mirror reproduce that
 surface exactly: an XLA replay of the recorded actions provides the
 per-step ground truth (bit-exact vs the kernel scan by construction),
@@ -43,7 +43,7 @@ def test_full_feed_reconstructs_obsdata_field_exact():
 
     blocks = []
     _, _, episodes, cons = S.stream_rollout(
-        states, rngs, chunk * n_chunks, chunk, block=n, interpret=True,
+        states, rngs, chunk * n_chunks, chunk, block=n,
         deliver="ring", steps_per_push=chunk,
         record="full", consume=lambda r: blocks.append(r.copy()))
     assert episodes > 0, "workload must include mid-run auto-resets"
@@ -87,7 +87,7 @@ def test_full_records_superset_of_compact():
     n, T = 8, 30
     states = vec.vec_reset(9, n, 4, 1, 0, 100000)
     rngs = vec.sampler_init(3, n)
-    progs = vec._kernel_programs(states, "storage", n, True)
+    progs = vec._kernel_programs(states, "storage", n)
     bctx, bdyn, brngs = progs.block_in(states, rngs)
     _, _, _, _, _, tj_c = progs.run_q(bctx, bdyn, brngs,
                                       progs.qstate_init(), T, "packed")

@@ -4,8 +4,7 @@
 The reference ships Sphinx autodoc + readthedocs (reference:
 docs/source/conf.py, .readthedocs.yaml); this environment has no Sphinx,
 so the buildable-docs target is this self-contained generator over the
-same content: the hand-written guides (docs/usage.md, docs/performance.md)
-plus the introspection-generated API reference (docs/api.md, kept fresh by
+same content: the hand-written guide (docs/usage.md) plus the introspection-generated API reference (docs/api.md, kept fresh by
 tools/gen_api_docs.py --check in CI).
 
     python tools/build_docs.py [--out docs/_site]
@@ -25,7 +24,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PAGES = [
     ("index", "README.md", "Overview"),
     ("usage", "docs/usage.md", "Usage guide"),
-    ("performance", "docs/performance.md", "Performance"),
     ("perf-history", "docs/perf-history.md", "Perf history"),
     ("api", "docs/api.md", "API reference"),
 ]

@@ -33,7 +33,6 @@ MODULES = [
     ("eldorado_tpu.core.engine", "Single-env engine (jitted reset/step)"),
     ("eldorado_tpu.core.mapgen", "On-device procedural map generation"),
     ("eldorado_tpu.ops.rng", "Bit-exact libstdc++ RNG streams"),
-    ("eldorado_tpu.ops.step_kernel", "Fused Pallas step kernel"),
     ("eldorado_tpu.errors", "Exceptions"),
     ("eldorado_tpu.render", "ANSI renderer"),
     ("eldorado_tpu.native", "Optional C++ helpers (obs packing, ring)"),

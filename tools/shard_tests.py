@@ -16,7 +16,8 @@ WEIGHTS = {
     "test_parallel.py": 10,
     "test_jax_parity.py": 8,
     "test_api_surfaces.py": 8,
-    "test_step_kernel.py": 6,
+    "test_step_kernel.py": 3,
+    "test_chip_smoke.py": 8,
     "test_exact_reset.py": 5,
     "test_docs.py": 5,
     "test_ref_traj.py": 4,
